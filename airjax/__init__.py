@@ -1,14 +1,14 @@
-"""airjax — TPU-native ADS-B (1090 MHz Mode S) decode framework.
+"""airjax — ADS-B (1090 MHz Mode S) decode framework in JAX.
 
-A brand-new JAX/XLA/Pallas implementation of the capabilities of the
+A JAX/XLA implementation of the capabilities of the
 reference Rust SDR pipeline (jaxsonpd/air_rs): complex IQ sample streams
 -> magnitude -> preamble/DF17 detection -> PPM bit-slicing -> CRC-24
 check/recovery -> protocol field extraction -> CPR position decode ->
 aircraft tracking -> stream/TUI/web display.
 
 Unlike the reference's three-CPU-thread scalar scan, the hot path here is a
-single jitted array program over fixed-size IQ blocks, sharded across TPU
-chips with overlap-save halo exchange so frames straddling block boundaries
+single jitted array program over fixed-size IQ blocks, sharded across
+GPUs with overlap-save halo exchange so frames straddling block boundaries
 are never dropped.
 
 Layer map (reference file -> airjax module):
@@ -23,7 +23,7 @@ Layer map (reference file -> airjax module):
   src/sdr.rs, src/receive.rs          -> airjax.sdr, airjax.cli (receive)
   src/adsb/tui.rs, web.rs             -> airjax.ui.{tui,web,stream}
   (absent in reference)               -> airjax.parallel (mesh, halo),
-                                         airjax.kernels (Pallas),
+                                         airjax.device (device, compile cache),
                                          airjax.extended (all downlink
                                          formats), airjax.protocol.commb
                                          (BDS registers), airjax.analytics

@@ -12,7 +12,7 @@ slicer can never reject — a pair compare always yields a valid Manchester
 pair — so the CRC is the only filter; the `errors > 2` bail is dead.)
 
 Here the scan is a branch-free array program over all offsets at once:
-26 shifted u32 min/max/compare ops per offset on the VPU, then a masked
+26 shifted min/max/compare ops per offset, then a masked
 compaction of detection offsets into a fixed-capacity candidate buffer, then
 bit-slicing of just those K candidates. Static shapes throughout.
 """
@@ -89,8 +89,8 @@ def compact_detections(
 ) -> tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """Compact a (n_off,) bool mask into ascending candidate offsets.
 
-    Two-level gather-based compaction (no scatter — TPU scatters serialize,
-    and a flat O(N) cumsum costs multiple HBM passes):
+    Two-level gather-based compaction (no scatter, and no flat O(N)
+    cumsum over the whole stream):
       1. per-tile detection counts (one reduction pass) + a tiny cumsum
          over the N/tile tile counts;
       2. binary-search the tile prefix for each rank, gather just the K
@@ -113,9 +113,8 @@ def compact_detections(
     local_cum = jnp.cumsum(rows.astype(jnp.int32), axis=1)
     local_rank = ranks - row_start[safe_row]
     # Rank -> in-tile position via sum-compare rather than a vmapped
-    # binary search: searchsorted(a, v) == sum(a < v) for sorted a, and
-    # the dense (K, tile) compare+reduce lowers ~12% faster end-to-end on
-    # TPU than K while-loop searches (tools/bench_variants.py).
+    # binary search: searchsorted(a, v) == sum(a < v) for sorted a, so a
+    # dense (K, tile) compare+reduce replaces K while-loop searches.
     local_idx = jnp.sum(
         local_cum < local_rank[:, None], axis=1, dtype=jnp.int32
     )
@@ -196,83 +195,25 @@ def threshold_slice_bits(
     return jax.vmap(one)(offsets, threshold)
 
 
-def slice_bits_sparse_bytes(
-    pbytes: jnp.ndarray, offsets: jnp.ndarray
-) -> jnp.ndarray:
-    """(K,) offsets -> (K, 112) bits from the fused kernel's sparse byte
-    plane (airjax.kernels.magdet.magdet_packed).
-
-    Byte B (covering cmp bits [8B, 8B+8), MSB first) is stored at flat
-    position (B >> 4) * 128 + (B & 15) * 8; reading one byte per bit is a
-    (K, 112) gather — tiny next to the stream-sized passes it replaces.
-    """
-    d0 = (offsets + DATA_OFFSET).astype(jnp.int32)
-    t = jnp.arange(FRAME_BITS, dtype=jnp.int32)
-    p = d0[:, None] + 2 * t[None, :]  # (K, 112) cmp bit positions
-    byte_idx = p >> 3
-    pos = ((byte_idx >> 4) << 7) + ((byte_idx & 15) << 3)
-    byte = pbytes[pos].astype(jnp.int32)
-    shift = 7 - (p & 7)
-    return ((byte >> shift) & 1).astype(jnp.uint8)
-
-
 _WORDS_PER_CAND = 8  # ceil((31 + 223) / 32) — covers any 32-bit alignment
 
 
 def pack_cmp_words(mags: jnp.ndarray) -> jnp.ndarray:
     """Precompute ALL pair-compare bits packed 32/word (MSB first).
 
-    cmp[i] = mags[i] > mags[i+1] is computed once for every sample in one
-    vectorized pass and bit-packed via one MXU matmul: row r of the
-    (N/128, 128) cmp matrix packs into 4 words through a (128, 8) weight
-    matrix producing each word's hi/lo 16-bit halves as exact f32 sums
-    (integers <= 65535 < 2^24, so f32 accumulation is exact on any
-    backend), recombined with integer shifts. Same flat word layout as the
-    original (N/32, 32)-reshape VPU reduction (kept below as
-    pack_cmp_words_reduce), ~2x faster on the v5e — the lane-minor reduce
-    used 32 of 128 lanes and relayouted (tools/bench_r2.py round-2 A/B).
-    Padded with _WORDS_PER_CAND zero words.
+    cmp[i] = mags[i] > mags[i+1] is computed once for every sample and
+    packed by an integer reduction: the (N/32, 32) bit matrix times the
+    powers of two 2^31..2^0, summed in uint32. Every product is a single
+    bit of the word, so the sum is exact in any order; no float and no
+    matmul precision is involved. Padded with _WORDS_PER_CAND zero words.
 
-    The cmp bits stay interleaved (data bits extracted as every other bit
-    downstream): stride-2 parity splits are pathological relayouts on TPU
-    (~64 ms for 16M elements).
+    On the H100 this measured faster than the earlier f32-matmul pack
+    (which had to materialize the 0/1 operand as f32 for the GEMM), alone
+    and inside the full-block decode (PERF.md).
+
+    The cmp bits stay interleaved (data bits are extracted as every
+    other bit downstream), so no stride-2 split of the stream is needed.
     """
-    cmp = (mags[:-1] > mags[1:]).astype(jnp.float32)
-    n = cmp.shape[0]
-    n_rows = -(-n // 128)
-    padded = jnp.pad(cmp, (0, n_rows * 128 - n)).reshape(n_rows, 128)
-    out = jnp.dot(
-        padded, jnp.asarray(_PACK_WEIGHTS), preferred_element_type=jnp.float32
-    )
-    hi = out[:, 0::2].astype(jnp.uint32)
-    lo = out[:, 1::2].astype(jnp.uint32)
-    words = ((hi << 16) | lo).reshape(-1)
-    return jnp.pad(words, (0, _WORDS_PER_CAND))
-
-
-def _pack_weights():
-    """(128, 8) f32 numpy constant (NOT a jnp array: materializing on a
-    device at import time would lock the backend before callers can
-    config-switch platforms)."""
-    import numpy as np
-
-    w = np.zeros((128, 8), np.float32)
-    for j in range(4):
-        for i in range(32):
-            if i < 16:
-                w[32 * j + i, 2 * j] = float(1 << (15 - i))
-            else:
-                w[32 * j + i, 2 * j + 1] = float(1 << (31 - i))
-    return w
-
-
-_PACK_WEIGHTS = _pack_weights()
-
-
-def pack_cmp_words_reduce(mags: jnp.ndarray) -> jnp.ndarray:
-    """Original VPU formulation of pack_cmp_words ((N/32, 32) x weights
-    reduction) — kept as a correctness cross-check and for backends where
-    a matmul is awkward; bit-identical output."""
     cmp = (mags[:-1] > mags[1:]).astype(jnp.uint32)
     n = cmp.shape[0]
     n_words = -(-n // 32)

@@ -4,7 +4,7 @@ src/adsb/crc.rs) used as an independent oracle in parity tests and for
 cross-checking the jitted pipeline on arbitrary (noisy) inputs.
 
 Deliberately written as per-offset scalar logic over numpy magnitudes —
-structurally unlike the vectorized TPU pipeline — so a bug in one is
+structurally unlike the vectorized device pipeline — so a bug in one is
 unlikely to be replicated in the other.
 """
 
@@ -40,11 +40,12 @@ def check_for_adsb_packet(buf: np.ndarray) -> bool:
     return True
 
 
-def extract_packet(buf: np.ndarray) -> bytes | None:
+def extract_packet(buf: np.ndarray, recover2: bool = False) -> bytes | None:
     """224 magnitudes -> 14 bytes if CRC passes (demod.rs:65-131,180-201).
 
     The active relative slicer never rejects; CRC (with single-bit
-    recovery) is the only filter.
+    recovery) is the only filter. recover2=True also accepts a unique
+    double-flip repair (the ungated oracle of pipeline.decode_iq_block_r2).
     """
     bits = buf[0::2] > buf[1::2]  # falling edge = 1
     packet = np.packbits(bits).tobytes()
@@ -52,17 +53,25 @@ def extract_packet(buf: np.ndarray) -> bytes | None:
     packet_crc = (packet[11] << 16) | (packet[12] << 8) | packet[13]
     if calced == packet_crc:
         return packet
-    return try_crc_recovery_scalar(packet)
+    fixed = try_crc_recovery_scalar(packet)
+    if fixed is None and recover2:
+        from airjax.protocol.crc import try_crc_recovery2_scalar
+
+        fixed = try_crc_recovery2_scalar(packet)
+    return fixed
 
 
-def decode_chunk(iq_chunk: np.ndarray) -> list[tuple[int, bytes]]:
+def decode_chunk(
+    iq_chunk: np.ndarray, recover2: bool = False
+) -> list[tuple[int, bytes]]:
     """Scan one chunk exactly like process_sdr_data_thread (adsb.rs:92-122):
-    stride-1 over offsets [0, len-240), duplicates kept."""
+    stride-1 over offsets [0, len-240), duplicates kept. recover2=True
+    adds unique double-flip repairs (see extract_packet)."""
     mags = magnitude(iq_chunk)
     hits = []
     for i in range(len(mags) - 240):
         if check_for_adsb_packet(mags[i : i + 32]):
-            packet = extract_packet(mags[i + 16 : i + 240])
+            packet = extract_packet(mags[i + 16 : i + 240], recover2)
             if packet is not None:
                 hits.append((i, packet))
     return hits

@@ -407,9 +407,8 @@ def modulate_device(
 ):
     """Device-side variant of `modulate` for large benchmark workloads.
 
-    Host numpy in this environment moves ~1 MB/ms, so synthesizing a
-    multi-GB workload on the host takes minutes; on the TPU it is
-    milliseconds. Not bit-identical to the numpy path (different RNG) —
+    Synthesizing a multi-GB workload with host numpy takes minutes; on
+    the device it takes milliseconds. Not bit-identical to the numpy path (different RNG) —
     use only where exact host parity is not required (bench, soak).
     """
     import jax

@@ -1,7 +1,9 @@
 """ctypes bindings for the native C++ runtime (native/airjax_native.cpp).
 
-Builds the shared library on first use if missing (g++ is baked into the
-image; pybind11 is not, hence the C ABI + ctypes). Provides:
+Builds the shared library from native/airjax_native.cpp on first use (it
+is not committed: it is compiled for the machine that loads it). Binding
+is a plain C ABI through ctypes, so no binding library is needed.
+Provides:
 
   * load_c16 / save_c16       — native capture IO
   * magnitude                 — reference-exact u32 magnitudes
@@ -25,7 +27,8 @@ import numpy as np
 
 _REPO_ROOT = pathlib.Path(__file__).resolve().parent.parent
 _NATIVE_DIR = _REPO_ROOT / "native"
-_LIB_PATH = _NATIVE_DIR / "libairjax_native.so"
+_LIB_NAME = "libairjax_native.so"
+_SRC_NAME = "airjax_native.cpp"
 _lock = threading.Lock()
 _lib = None
 
@@ -34,16 +37,49 @@ class NativeUnavailable(RuntimeError):
     pass
 
 
-def _build() -> None:
-    try:
-        subprocess.run(
-            ["make", "-s"], cwd=_NATIVE_DIR, check=True, capture_output=True
+def ensure_built(native_dir: pathlib.Path = _NATIVE_DIR) -> pathlib.Path:
+    """Build `<native_dir>/libairjax_native.so` if missing or older than
+    its source; returns its path.
+
+    The build is native/Makefile's rule (built on the machine that loads
+    it, so -march=native is safe). Safe to call from several processes at
+    once (the test runner's workers all import this): the build holds an
+    exclusive file lock and renames a finished library into place, so no
+    process ever loads a half-written one.
+    """
+    import fcntl
+
+    lib_path = native_dir / _LIB_NAME
+    src = native_dir / _SRC_NAME
+
+    def stale() -> bool:
+        return not lib_path.exists() or (
+            src.exists() and src.stat().st_mtime > lib_path.stat().st_mtime
         )
-    except (OSError, subprocess.CalledProcessError) as e:
-        detail = getattr(e, "stderr", b"")
-        raise NativeUnavailable(
-            f"failed to build native library: {e} {detail!r}"
-        ) from e
+
+    if not stale():
+        return lib_path
+    if not src.exists():
+        raise NativeUnavailable(f"missing {lib_path} and its source {src}")
+    with open(native_dir / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if stale():  # another process may have built it meanwhile
+            tmp = native_dir / f".{_LIB_NAME}.{os.getpid()}.tmp"
+            try:
+                subprocess.run(
+                    ["make", "-s", "-C", str(native_dir), f"TARGET={tmp.name}",
+                     tmp.name],
+                    check=True, capture_output=True,
+                )
+                os.replace(tmp, lib_path)
+            except (OSError, subprocess.CalledProcessError) as e:
+                detail = getattr(e, "stderr", b"")
+                raise NativeUnavailable(
+                    f"failed to build native library: {e} {detail!r}"
+                ) from e
+            finally:
+                tmp.unlink(missing_ok=True)
+    return lib_path
 
 
 def get_lib() -> ctypes.CDLL:
@@ -51,12 +87,7 @@ def get_lib() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        src = _NATIVE_DIR / "airjax_native.cpp"
-        if not _LIB_PATH.exists() or (
-            src.exists() and src.stat().st_mtime > _LIB_PATH.stat().st_mtime
-        ):
-            _build()
-        lib = ctypes.CDLL(str(_LIB_PATH))
+        lib = ctypes.CDLL(str(ensure_built()))
 
         lib.airjax_load_c16.restype = ctypes.c_longlong
         lib.airjax_load_c16.argtypes = [

@@ -25,15 +25,20 @@ logger = logging.getLogger("airjax")
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/airjax_trace", enabled: bool = True):
+def trace(log_dir: str | None = None, enabled: bool = True):
     """Capture a device profile of the enclosed block.
 
-    View with: tensorboard --logdir <log_dir>  (or open the .perfetto
-    trace in ui.perfetto.dev).
+    `log_dir` defaults to `<repo>/traces` (airjax.device.TRACE_DIR). View
+    with: tensorboard --logdir <log_dir>  (or open the .perfetto trace in
+    ui.perfetto.dev).
     """
     if not enabled:
         yield
         return
+    if log_dir is None:
+        from airjax.device import TRACE_DIR
+
+        log_dir = str(TRACE_DIR)
     jax.profiler.start_trace(log_dir)
     try:
         yield

@@ -2,7 +2,7 @@
 
 A continuous IQ stream is sharded along time across the mesh; a Mode S
 window is 240 samples, so each shard needs the first 239 magnitudes of its
-right neighbor to scan every offset it owns. That halo moves over ICI with a
+right neighbor to scan every offset it owns. That halo moves between devices with a
 single `jax.lax.ppermute` (ring shift by one), after which every device
 scans its own `B` offsets — every global offset is scanned exactly once, so
 no dedupe is needed and no frame is ever lost at a shard boundary (the class
@@ -32,10 +32,9 @@ HALO = WINDOW - 1  # 239
 
 # The tuned shard decomposition pads so block ≡ TUNED_RESIDUE (mod 1024):
 # then a TUNED_HALO-sample exchange makes the per-shard slice
-# (block + 240) exactly 1024-tile-aligned while n_off = block stays off a
-# power of two — the shape measured fastest within-run on the real chip
-# (tools/bench_shard_shapes.py, PERF_r03; the old block+239/power-of-two
-# shape is the pathology PERF_r02 §2 measured 1.2-2x slower).
+# (block + 240) exactly 1024-aligned while n_off = block stays off a
+# power of two. Both decompositions scan every offset exactly once; which
+# shape is faster is a per-device measurement (PERF.md).
 TUNED_HALO = 240
 TUNED_RESIDUE = (-TUNED_HALO) % 1024  # 784
 
@@ -52,8 +51,8 @@ def _halo_size(block: int) -> int:
 
 def tuned_block(per_shard: int) -> int:
     """Round a per-shard sample count UP to the tuned congruence class
-    (≡ 784 mod 1024) so `build_sharded_decoder` picks the fast shape.
-    Below 4096 samples the shape effect is noise and the minimal pad wins."""
+    (≡ 784 mod 1024) so `build_sharded_decoder` picks the aligned shape.
+    Below 4096 samples the minimal pad is kept."""
     if per_shard < 4096:
         return per_shard
     return per_shard + (TUNED_RESIDUE - per_shard) % 1024
@@ -168,9 +167,8 @@ def decode_capture_sharded(
     n_dev = mesh.shape[axis]
     n = len(iq)
     # Pad so the per-shard block lands in the tuned congruence class
-    # (≡ 784 mod 1024 when big enough): the shard-local kernel then scans
-    # an off-power offset count over a tile-aligned slice — the shape the
-    # within-run chip A/B measured fastest (tools/bench_shard_shapes.py).
+    # (≡ 784 mod 1024 when big enough): the shard-local decode then scans
+    # an off-power offset count over a 1024-aligned slice.
     block = tuned_block(-(-n // n_dev))
     padded_len = block * n_dev
     arr = pad_iq_non_detecting(np.asarray(iq, dtype=np.int16), padded_len)
@@ -239,11 +237,11 @@ def decode_capture_sharded(
 
 
 # ---------------------------------------------------------------------------
-# Hit-proportional candidate gather (VERDICT r4 item 3)
+# Hit-proportional candidate gather
 # ---------------------------------------------------------------------------
 #
 # The dense sharded decoders above return (D*K,) candidate arrays: at
-# K=256/2048 per shard the host fetch (and, on a pod, the host-0 DCN
+# K=256/2048 per shard the host fetch (and, across hosts, the host-0
 # gather) carries D*K*rowbytes even when n_good ~ 20. The compact
 # builders below add a cross-shard device-side compaction: per-shard
 # good/candidate slots are re-compacted to the front (gather-based, no
@@ -252,7 +250,7 @@ def decode_capture_sharded(
 # shard contributes its rows into a REPLICATED (C,) buffer via
 # dynamic_update_slice + psum — rows land offset-sorted (ascending shard
 # base x ascending in-shard offset), zero rows sum transparently, and
-# the ICI collective does the gather so the host fetches ~n_good rows
+# the collective does the gather so the host fetches ~n_good rows
 # instead of D*K.
 
 
@@ -321,7 +319,7 @@ def _run_compact_with_regrow(
 
 def _global_base(count: jnp.ndarray, n_dev: int, axis: str):
     """(base, total): this shard's exclusive-prefix write position and
-    the pod-wide row count, from one (D,)-scalar all_gather."""
+    the mesh-wide row count, from one (D,)-scalar all_gather."""
     counts = jax.lax.all_gather(count, axis)  # (D,)
     my = jax.lax.axis_index(axis)
     base = jnp.sum(

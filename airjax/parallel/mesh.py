@@ -2,8 +2,9 @@
 
 The reference has no distributed computing at all (SURVEY.md §2.4) — its
 parallelism is three OS threads and mpsc channels. Here the time axis of the
-IQ stream is sharded over a 1-D `Mesh` (ICI within a slice, DCN across
-hosts), and decoded-candidate gathers ride XLA collectives.
+IQ stream is sharded over a 1-D `Mesh` (all cards of a host reach each
+other at the same rate, so the mesh follows the stream alone), and
+decoded-candidate gathers ride XLA collectives.
 """
 
 from __future__ import annotations
@@ -39,9 +40,10 @@ def replicated(mesh: Mesh) -> NamedSharding:
 def init_distributed() -> None:
     """Multi-host initialization (jax.distributed); no-op when single-host.
 
-    Call before any other JAX API in a multi-host launch. Coordinator
-    address/process ids come from the environment (TPU pod metadata), per
-    standard jax.distributed.initialize() discovery.
+    Call before any other JAX API in a multi-host launch. With no
+    arguments, jax.distributed.initialize() finds the coordinator and
+    process ids only where the cluster environment provides them; where
+    it cannot, this is a single-process run and nothing is done.
     """
     try:
         jax.distributed.initialize()

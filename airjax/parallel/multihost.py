@@ -2,8 +2,7 @@
 
 BASELINE config 5: time-block sharding across >=2 hosts. The sharded halo
 decoder (airjax.parallel.halo) is mesh-agnostic — over a multi-host mesh
-its `ppermute` halo rides ICI within a slice and DCN between hosts with no
-code change. This module adds the multi-host plumbing around it:
+its `ppermute` halo crosses hosts with no code change. This module adds the multi-host plumbing around it:
 
   * init()                — jax.distributed.initialize (no-op single-host)
   * global_mesh()         — 1-D mesh over all devices of all processes
@@ -73,7 +72,7 @@ def decode_capture(
     gather="compact" (default): the cross-shard device-side compaction
     (halo.build_sharded_decoder_compact) returns REPLICATED ~n_good-row
     arrays, so no process_allgather is needed at all — the psum inside
-    the sharded program already moved the (tiny) hit rows over ICI/DCN,
+    the sharded program already moved the (tiny) hit rows between devices,
     and each host fetches its local replica. "dense" keeps the classic
     (D*K,) arrays + explicit allgather for A/B.
     """

@@ -119,8 +119,8 @@ def decode_iq_block(
 def decode_mags_block_r2(
     mags: jnp.ndarray, n_off: int, capacity: int
 ) -> dict[str, jnp.ndarray]:
-    """decode_mags_block + 2-bit CRC recovery (opt-in yield improvement,
-    VERDICT r4 item 6; beyond the reference's 1-flip brute force,
+    """decode_mags_block + 2-bit CRC recovery (opt-in yield improvement
+    beyond the reference's 1-flip brute force,
     src/adsb/crc.rs:49-65). Extra key `recovered2` marks frames that
     validated only via a unique double-flip repair; `good` includes
     them. Callers MUST gate recovered2 acceptance (see
@@ -135,40 +135,6 @@ def decode_iq_block_r2(
 ) -> dict[str, jnp.ndarray]:
     """(L, 2) int16 IQ -> candidate dict incl. 2-bit repairs (jitted)."""
     return decode_mags_block_r2(magnitude_u16(iq), n_off, capacity)
-
-
-@functools.partial(jax.jit, static_argnames=("n_off", "capacity", "interpret"))
-def decode_iq_block_kernel(
-    iq: jnp.ndarray, n_off: int, capacity: int, interpret: bool = False
-) -> dict[str, jnp.ndarray]:
-    """Fused-kernel decode path: one Pallas pass produces the detection
-    mask AND pre-packed PPM compare bytes (magnitude/cmp never touch HBM,
-    and the stream-sized pack_cmp_words pass disappears). Downstream
-    compaction/CRC are identical to decode_mags_block.
-
-    `iq` must be kernel-padded: (n + EXTRA, 2) int16 with n a multiple of
-    TILE and n >= n_off + WINDOW - 1 (see airjax.kernels.magdet).
-    """
-    from airjax.dsp.demod import slice_bits_sparse_bytes
-    from airjax.kernels.magdet import magdet_packed
-
-    det, pbytes = magdet_packed(iq, interpret=interpret)
-    offsets, n_det = compact_mask(det[:n_off] != 0, capacity)
-    valid = offsets < n_off
-    bits = slice_bits_sparse_bytes(pbytes, jnp.where(valid, offsets, 0))
-    bits, crc_ok, recovered = crc_check_and_recover(bits)
-    good = crc_ok & valid
-    frames = bits_to_bytes(bits)
-    return {
-        "offsets": offsets,
-        "valid": valid,
-        "good": good,
-        "recovered": recovered & valid,
-        "frames": frames,
-        "n_detections": n_det,
-        "n_good": jnp.sum(good, dtype=jnp.int32),
-        "overflow": n_det > capacity,
-    }
 
 
 def decode_mags_block_extended(
@@ -437,8 +403,7 @@ def decode_capture_parity(
         # Hit-level stats reflect the returned (chunk-filtered) hits, and
         # n_detections is the exact reference-chunked count — an extra
         # counting pass over the SAME device array as the scan (prep[0]'s
-        # prefix is the capture; this dev host uploads at ~20-30 MB/s, so
-        # a second upload would double the wall time of big captures).
+        # prefix is the capture, so it is uploaded once).
         stats = {
             "n_detections": int(
                 _count_chunked_detections(prep[0], chunk, n_chunks)
@@ -488,8 +453,8 @@ def _decode_block_at(
 ):
     """Decode `n_off` offsets of the slice starting at traced offset
     `start` of a padded capture resident on device (one upload,
-    device-side slicing — a host np.stack of overlapping blocks costs
-    minutes at ~1 MB/ms here)."""
+    device-side slicing instead of a host np.stack of overlapping
+    blocks)."""
     ext = jax.lax.dynamic_slice(iq_padded, (start, 0), (slice_len, 2))
     return decode_mags_block(magnitude_u16(ext), n_off, capacity)
 
@@ -513,11 +478,10 @@ def decode_capture_overlap(
 def _prep_overlap(iq: np.ndarray, cfg: PipelineConfig):
     """Pad + upload a capture for the overlap scan; None if too short.
 
-    Shape-tuned decomposition (tools/bench_r2.py, within-run on the v5e):
-    scanning a power-of-two offset count over a (block + 239)-sample
-    slice is a measured pathology (1.2x at 2^22, 1.3-2x at 2^24); a
-    tile-aligned slice of exactly `block` samples with n_off = block-1264
-    is the fastest shape. Small blocks keep the classic halo form.
+    Large blocks scan a 1024-aligned slice of exactly `block` samples
+    with n_off = block - 1264, which keeps the offset count off a power
+    of two; small blocks keep the classic halo form (block + 239). Both
+    scan every offset exactly once, so the hit stream is the same.
     Returns (iq_dev, n, slice_len, scan, n_blocks) — iq_dev[:n] is the
     capture itself (the pad is non-detecting), so callers can reuse the
     single upload for extra passes like _count_chunked_detections.

@@ -1,4 +1,4 @@
-"""Mode S CRC-24 as GF(2) linear algebra, batched for TPU.
+"""Mode S CRC-24 as GF(2) linear algebra, batched on the device.
 
 The reference (src/adsb/crc.rs:10-40) computes the CRC by bit-serial long
 division with generator 0x1FFF409 over the first 88 bits of a 112-bit frame
@@ -6,7 +6,7 @@ padded with 24 zero bits, and recovers single-bit errors by brute-force
 flipping each of the 112 bits and recomputing the CRC (src/adsb/crc.rs:49-65,
 O(112 x CRC) per failed packet).
 
-CRC over GF(2) is linear in the message bits, so the TPU-native formulation
+CRC over GF(2) is linear in the message bits, so the batched formulation
 is a single (N, 88) @ (88, 24) integer matmul followed by a parity reduction:
   crc(bits) = XOR_{i: bits[i]=1} crc(e_i)
 where e_i is the i-th unit message. Single-bit recovery reduces to one table
@@ -95,8 +95,11 @@ def pack_bits_msbfirst(bits: jnp.ndarray, width: int) -> jnp.ndarray:
 def crc24_batch(bits88: jnp.ndarray) -> jnp.ndarray:
     """Batched CRC of (..., 88) {0,1} bit arrays -> (...,) uint32.
 
-    One int32 matmul (MXU-friendly; max column sum is 88 so int32/f32 are
-    exact) + parity + pack.
+    One int32 matmul + parity + pack. The column sums are at most 88, so
+    the integer dot is exact in any summation order. cuBLAS has no s32
+    GEMM; on the H100 XLA emits this as its own fusion, and chip_smoke.py
+    checks it bit-exact against the native table CRC (an int8 form with
+    int32 accumulation measured no faster there, PERF.md).
     """
     matrix = jnp.asarray(crc_matrix(), dtype=jnp.int32)
     sums = jnp.matmul(
@@ -138,7 +141,7 @@ def crc_check_and_recover(
 @functools.cache
 def _pair_tables() -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Pairwise-flip syndrome table for 2-bit recovery (opt-in yield
-    improvement, VERDICT r4 item 6): syndromes of flipping data bits
+    improvement): syndromes of flipping data bits
     (i, j), i < j < 88 — (3828,) uint32 plus the (i, j) index arrays.
 
     Uniqueness: a collision S_i^S_j == S_k^S_l between distinct pairs

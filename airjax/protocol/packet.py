@@ -1,6 +1,6 @@
 """Host-side ADS-B packet model (mirrors src/adsb/packet.rs, msgs.rs).
 
-The TPU pipeline hands decoded 14-byte frames to the host; this module turns
+The device pipeline hands decoded 14-byte frames to the host; this module turns
 them into typed packet objects for tracking and display, with a `format()`
 that replicates the reference's `Display` output (src/adsb/packet.rs:77-99,
 src/adsb/msgs.rs:127-139,215-222) character for character (timestamps aside).

@@ -4,7 +4,7 @@ Position messages update altitude, stash the even/odd CPR frame, and — if an
 opposite-parity frame arrived within the last 10 seconds
 (src/adsb/aircraft.rs:68,84) — run the CPR global decode. ID messages set the
 callsign. This is host-side state (a hash map of mutable aircraft), exactly
-the part of the reference that does not belong on a TPU.
+the part of the reference that does not belong on the device.
 """
 
 from __future__ import annotations

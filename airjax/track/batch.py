@@ -2,15 +2,14 @@
 
 The per-packet host path (AdsbPacket.from_bytes + handle_aircraft_update
 per frame — the shape of the reference's thread-3 consumer,
-src/adsb.rs:149-167) measures ~114k msgs/s on this host, 4.4x short of the
-device's ~500k decoded msgs/s (tools/bench_host.py, PERF_r03). This sink
-closes the gap: protocol fields are extracted on-device in the same jitted
+src/adsb.rs:149-167) measures ~114k msgs/s on a host CPU
+(tools/bench_host.py). This sink removes most of that cost: protocol fields are extracted on-device in the same jitted
 program as the decode (airjax.pipeline.decode_iq_block_with_fields), the
 per-frame host work shrinks to a few dict/attribute operations, and all
 CPR pair decodes of a block run through the vectorized
 airjax.track.cpr_batch at once.
 
-Round-4 design (PERF_r04 host keep-up): blocks are reduced to merged
+Design: blocks are reduced to merged
 per-message COLUMNS in ascending offset order — in extended mode
 unifying pass-1 validated frames with the cache-gated pass-2 candidates,
 where the simple kinds (DF11 all-calls, DF4/DF5 surveillance, DF0 ACAS)
@@ -20,9 +19,8 @@ last-write-wins reduction whose host cost scales with aircraft rather
 than messages; blocks containing genuinely complex kinds (DF16 MV-RA,
 DF20/21 Comm-B, non-batched MEs) take the ordered zip walk (`_walk`)
 with the per-packet path interleaved at each fallback's offset
-position. Measured on tools/bench_host.py at device block granularity:
-~797k parity / ~640k extended msgs/s vs the device's 516k
-(perf/host_r04.json; round 3: 653k / 328k).
+position. Measured on tools/bench_host.py at ~1000-message blocks on a
+host CPU: ~797k parity / ~640k extended msgs/s (perf/host_r04.json).
 
 Semantics are EXACTLY the per-packet tracker's (parity scope: the DF17
 pipeline's AircraftID / AircraftPosition / Unknown classes,

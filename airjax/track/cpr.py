@@ -16,7 +16,7 @@ because decoded positions must match the reference to <1e-4 degrees:
 
 This runs on the host: CPR pairing is stateful per aircraft and involves a
 handful of transcendentals per *position fix* (not per sample), so it does
-not belong on the TPU hot path. A batched jnp variant could be added for
+not belong on the device hot path. A batched jnp variant could be added for
 mass-replay analytics if ever needed.
 """
 

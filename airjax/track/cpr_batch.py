@@ -7,7 +7,7 @@ latitude selection, the NL(lat - 1 degree) odd-path quirk, and Rust fmod
 semantics (np.fmod truncates toward zero, matching Rust's `%` on f64).
 
 Runs on the host in numpy: CPR is a handful of transcendentals per
-*position fix*, so it never belongs on the TPU hot path, but bulk replays
+*position fix*, so it never belongs on the device hot path, but bulk replays
 (millions of archived pairs) want it vectorized. Fuzz-tested element-wise
 against the scalar oracle in tests/test_cpr_batch.py.
 """

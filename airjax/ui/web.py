@@ -141,7 +141,7 @@ class WebDisplay:
         the WS broadcast coalesces to ONE summary per touched aircraft
         per decode block. The reference broadcasts one summary per packet
         (web.rs:117-129) — that granularity stays the default for parity,
-        but cannot keep up with the device's ~500k decoded msgs/s.
+        but its per-packet host cost is the larger one.
         Clients (app.js ingest keyed by ICAO) are granularity-agnostic."""
         from airjax.track.batch import build_batched_sink
 

@@ -1,6 +1,6 @@
 // airjax native runtime: C++ implementations of the host-side hot paths.
 //
-// The reference's entire binary is native (Rust); in the TPU build the
+// The reference's entire binary is native (Rust); in airjax the
 // compute path is JAX/XLA, and this library provides the native tier for
 // the runtime *around* the device: capture IO, the block framer that feeds
 // the device queue, a lock-free SPSC ring buffer for source->decode

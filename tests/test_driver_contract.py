@@ -39,3 +39,19 @@ def test_graft_dryrun_multichip():
     import __graft_entry__ as g
 
     g.dryrun_multichip(len(jax.devices()))
+
+
+def test_bench_main_refuses_cpu():
+    """`python bench.py` measures the GPU: with no GPU it exits non-zero
+    and prints no result line."""
+    import os
+    import subprocess
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    res = subprocess.run(
+        [sys.executable, "bench.py"], cwd=root,
+        env=dict(os.environ, JAX_PLATFORMS="cpu"),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode != 0
+    assert "iq_throughput_msps" not in res.stdout

@@ -1,4 +1,4 @@
-"""Fuzz parity: the jitted TPU pipeline must produce byte-identical hit
+"""Fuzz parity: the jitted device pipeline must produce byte-identical hit
 streams (offset order, duplicates included) to the golden scalar decoder —
 the reimplementation of the reference semantics — on noisy synthetic IQ.
 This is the BASELINE config-1 bit-exactness gate without hardware captures.
@@ -61,3 +61,16 @@ def test_parity_corrupted_frames():
     recovered_frames = [f for _, o, f in ours if o == 300]
     assert recovered_frames == [frame]
     assert all(o != 2800 for _, o, _ in ours)
+
+
+def test_fuzz_parity_three_way_slice():
+    """tools/fuzz_parity.py's loop (device, golden and native under the
+    reference's playback chunking) at a CI-sized slice."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "tools" / "fuzz_parity.py"
+    spec = importlib.util.spec_from_file_location("fuzz_parity", path)
+    fuzz = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fuzz)
+    assert fuzz.run(iters=6, seed=11, chunk=2000) == 0

@@ -3,8 +3,9 @@ trunc(f64 sqrt(re^2+im^2)) (src/utils.rs:46-52)."""
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
-from airjax.dsp.magnitude import magnitude_u32, isqrt_u32
+from airjax.dsp.magnitude import isqrt_fixup, isqrt_u32, magnitude_u32
 
 
 def _reference_mag(iq: np.ndarray) -> np.ndarray:
@@ -45,3 +46,17 @@ def test_perfect_squares_boundary():
     ours = np.asarray(isqrt_u32(jnp.asarray(s)))
     expect = np.sqrt(s.astype(np.float64)).astype(np.uint32)
     assert np.array_equal(ours, expect)
+
+
+@pytest.mark.parametrize("delta", [-1, 0, 1])
+def test_isqrt_fixup_exact_within_one(delta):
+    """The fixup turns any estimate within +-1 of the root into the exact
+    floor(sqrt(s)): checked at every perfect square and its neighbours up
+    to 2^31 (where roots change, so where an estimate can be off)."""
+    k = np.arange(0, 46341, dtype=np.uint64)
+    s = np.concatenate([k * k - 1, k * k, k * k + 1, [1 << 31]])
+    s = s[(s <= (1 << 31)) & (s < (1 << 63))].astype(np.uint32)
+    root = np.floor(np.sqrt(s.astype(np.float64))).astype(np.int64)
+    est = np.maximum(root + delta, 0).astype(np.uint32)
+    got = np.asarray(isqrt_fixup(jnp.asarray(s), jnp.asarray(est)))
+    np.testing.assert_array_equal(got, root.astype(np.uint32))

@@ -105,3 +105,26 @@ def test_native_extended_matches_golden_fuzz():
         # golden returns icao_ap 0 for 'long'; native also writes 0 there.
         assert [(o, k, f, a) for o, k, f, a in g] == n, trial
         assert ndet >= len(g)
+
+
+@pytest.mark.parametrize("state", ["missing", "stale"])
+def test_ensure_built_rebuilds(state, tmp_path):
+    """The library is not committed: native.py builds it from source when
+    it is missing, and again when the source is newer than it."""
+    import ctypes
+    import os
+    import shutil
+
+    for name in ("airjax_native.cpp", "Makefile"):
+        shutil.copy(native._NATIVE_DIR / name, tmp_path / name)
+    lib = tmp_path / "libairjax_native.so"
+    if state == "stale":
+        lib.write_bytes(b"not a library")
+        os.utime(lib, (1, 1))
+    assert native.ensure_built(tmp_path) == lib
+    loaded = ctypes.CDLL(str(lib))
+    loaded.airjax_crc24.restype = ctypes.c_uint32
+    msg = bytes(range(11))
+    buf = (ctypes.c_uint8 * 11).from_buffer_copy(msg)
+    assert loaded.airjax_crc24(buf, 11) == crc.crc24(msg)
+    assert not list(tmp_path.glob(".*.tmp"))

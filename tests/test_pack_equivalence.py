@@ -1,14 +1,15 @@
-"""Regression guards for the round-2 compute-path promotions.
+"""Regression guards for the compute-path formulations.
 
-The production pipeline now uses u16 magnitudes and the MXU-matmul bit
-pack; these must stay bit-identical to their original u32/VPU
-formulations forever (the parity oracle chain depends on it).
+The production pipeline uses u16 magnitudes and an integer-reduce bit
+pack; these must stay bit-identical to the u32 magnitudes and to
+np.packbits of the pair-compare bits forever (the parity oracle chain
+depends on it).
 """
 
 import jax.numpy as jnp
 import numpy as np
 
-from airjax.dsp.demod import pack_cmp_words, pack_cmp_words_reduce
+from airjax.dsp.demod import pack_cmp_words
 from airjax.dsp.magnitude import magnitude_u16, magnitude_u32
 
 
@@ -28,22 +29,20 @@ def test_magnitude_u16_lossless():
     np.testing.assert_array_equal(m32, m16.astype(np.uint32))
 
 
-def test_mxu_pack_matches_vpu_reduce():
+def test_pack_matches_packbits():
     rng = np.random.default_rng(1)
     for n in (63, 64, 65, 4096, 20000):
-        mags = jnp.asarray(rng.integers(0, 1 << 16, size=n).astype(np.uint16))
-        a = np.asarray(pack_cmp_words(mags))
-        b = np.asarray(pack_cmp_words_reduce(mags))
-        # The MXU pack rounds up to whole 4-word rows, so it may carry up
-        # to 3 extra zero words before the guard padding; every word both
-        # emit is identical and the extras are zero.
-        m = min(len(a), len(b))
-        np.testing.assert_array_equal(a[:m], b[:m])
-        assert not a[m:].any() and not b[m:].any()
-        assert len(a) - len(b) in (0, 1, 2, 3)
+        mags = rng.integers(0, 1 << 16, size=n).astype(np.uint16)
+        words = np.asarray(pack_cmp_words(jnp.asarray(mags)))
+        packed = np.packbits(mags[:-1] > mags[1:])
+        packed = np.pad(packed, (0, -len(packed) % 4)).view(">u4")
+        # One word per 32 compare bits, then 8 zero guard words.
+        assert len(words) == len(packed) + 8
+        np.testing.assert_array_equal(words[: len(packed)], packed)
+        assert not words[len(packed):].any()
 
 
-def test_mxu_pack_matches_scalar_bits():
+def test_pack_matches_scalar_bits():
     rng = np.random.default_rng(2)
     mags = rng.integers(0, 200, size=1000).astype(np.uint16)
     words = np.asarray(pack_cmp_words(jnp.asarray(mags)))

@@ -331,3 +331,27 @@ def test_noise_fuzz_zero_false_accepts():
         run_stream(iter([iq]), got.append, overlap=True, recover2=True)
         # Corrupted frames of never-seen ICAOs must all be suppressed.
         assert got == [], [p.packet.hex() for p in got]
+
+
+def test_golden_recover2_matches_device_r2():
+    """golden.decode_chunk(recover2=True) is the ungated oracle of
+    decode_iq_block_r2: a double-flipped frame comes back repaired in
+    both, a single flip in both, and recover2=False drops the double."""
+    from airjax import golden
+
+    frame = synth.make_df17(0x4840D6, synth.make_id_me("GOLDR2"))
+    two = synth.flip_bit(synth.flip_bit(frame, 20), 61)
+    one = synth.flip_bit(frame, 40)
+    iq = synth.modulate([two, one, frame], [300, 2000, 4000], 6000, seed=9)
+    gold = golden.decode_chunk(iq, recover2=True)
+    assert [o for o, _ in gold] == [300, 2000, 4000]
+    assert all(p == frame for _, p in gold)
+    assert [o for o, _ in golden.decode_chunk(iq)] == [2000, 4000]
+    out = jax.device_get(
+        decode_iq_block_r2(jnp.asarray(iq), len(iq) - 240, 64)
+    )
+    dev = [
+        (int(out["offsets"][k]), out["frames"][k].tobytes())
+        for k in np.nonzero(out["good"])[0]
+    ]
+    assert dev == gold

@@ -1,5 +1,5 @@
-"""Host keep-up benchmark (VERDICT r2 item 3): can the online host side
-sustain the device's decoded-msgs rate (~500k msgs/s at bench density)?
+"""Host keep-up benchmark: how many decoded msgs/s can the online host
+side apply?
 
 Two paths, same message stream:
 
@@ -78,10 +78,9 @@ def build_extended_block(n_aircraft: int = 64, repeats: int = 3):
     surveillance replies for half the fleet. Returns the device dict of
     decode_iq_block_extended_with_fields.
 
-    `repeats=3` sizes the block at ~960 messages — matching the DEVICE's
-    block granularity at bench density (BENCH_r03: 516,608 msgs/s over
-    507 passes/s ≈ 1019 msgs per decode block) and the parity bench's
-    1024-frame blocks, so host and device rates compare like for like."""
+    `repeats=3` sizes the block at ~960 messages — matching the parity
+    bench's 1024-frame blocks (bench.py), so host and device rates compare
+    like for like."""
     from airjax.pipeline import decode_iq_block_extended_with_fields
     from airjax.protocol import shortframe
 

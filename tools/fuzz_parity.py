@@ -1,5 +1,5 @@
-"""Differential parity fuzzer: the jitted pipeline vs the golden scalar
-decoder on randomized captures — lengths (chunk-boundary edge cases
+"""Three-way differential parity fuzzer: the jitted pipeline, the golden
+scalar decoder and the native C++ decoder on randomized captures — lengths (chunk-boundary edge cases
 included), SNRs, overlapping/corrupted frames, tie-heavy low-amplitude
 streams, and constant-magnitude storms.
 
@@ -20,7 +20,10 @@ sys.path.insert(0, str(__import__("pathlib").Path(__file__).resolve().parent.par
 from airjax import golden  # noqa: E402
 from airjax.config import PipelineConfig  # noqa: E402
 from airjax.io import synth  # noqa: E402
-from airjax.pipeline import decode_capture_parity  # noqa: E402
+from airjax.pipeline import (  # noqa: E402
+    decode_capture_parity,
+    reference_chunk_count,
+)
 
 
 def random_capture(rng: np.random.Generator, chunk: int) -> np.ndarray:
@@ -78,6 +81,17 @@ def random_capture(rng: np.random.Generator, chunk: int) -> np.ndarray:
     )
 
 
+def native_playback(iq: np.ndarray, chunk: int) -> list[tuple[int, int, bytes]]:
+    """The native decoder under the reference's playback chunking."""
+    from airjax.native import decode_chunk
+
+    out = []
+    for c in range(reference_chunk_count(len(iq), chunk)):
+        hits, _ = decode_chunk(iq[c * chunk : (c + 1) * chunk], max_hits=chunk)
+        out.extend((c, o, p) for o, p, _ in hits)
+    return out
+
+
 def run(iters: int, seed: int, chunk: int) -> int:
     rng = np.random.default_rng(seed)
     cfg = PipelineConfig(block_len=chunk, max_candidates=128)
@@ -85,16 +99,17 @@ def run(iters: int, seed: int, chunk: int) -> int:
         iq = random_capture(rng, chunk)
         ours, _ = decode_capture_parity(iq, cfg)
         gold = golden.decode_capture_playback(iq, chunk=chunk)
+        nat = native_playback(iq, chunk)
         ours_cmp = [(c, o, f) for c, o, f, _ in ours]
-        if ours_cmp != gold:
+        if ours_cmp != gold or nat != gold:
             print(f"MISMATCH at iteration {i} (len={len(iq)})")
-            print(" ours:", ours_cmp[:5])
-            print(" gold:", gold[:5])
-            np.save("/tmp/fuzz_mismatch_iq.npy", iq)
+            print(" ours:  ", ours_cmp[:5])
+            print(" native:", nat[:5])
+            print(" gold:  ", gold[:5])
             return 1
         if (i + 1) % 25 == 0:
             print(f"{i + 1}/{iters} ok ({len(gold)} hits last)")
-    print(f"all {iters} iterations bit-exact")
+    print(f"all {iters} iterations three-way bit-exact")
     return 0
 
 

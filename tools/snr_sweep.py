@@ -1,6 +1,6 @@
 """SNR sensitivity sweep (BASELINE config 2): decode probability vs SNR.
 
-Batches of synthetic captures at mixed SNR are decoded by the TPU pipeline
+Batches of synthetic captures at mixed SNR are decoded by the device pipeline
 and (optionally) cross-checked against the golden scalar decoder — the
 decode-rate curves must coincide, since the pipelines are bit-identical.
 
@@ -80,7 +80,7 @@ def sweep(
         if check_golden:
             point["golden_decode_rate"] = round(golden_decoded / total, 4)
             assert point["golden_decode_rate"] == point["decode_rate"], (
-                f"TPU pipeline diverged from golden decoder at {snr} dB"
+                f"device pipeline diverged from golden decoder at {snr} dB"
             )
         curve.append(point)
     return {"curve": curve, "frames_per_capture": frames_per_capture}
